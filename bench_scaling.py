@@ -5,9 +5,10 @@ Measures the two distributed programs (BASELINE.md multi-host targets):
 - the edge-sharded pose-graph solve over the ``graph`` axis (psum-reduced
   Gauss-Newton).
 
-On a real pod this reports true scaling; on a single host it still runs via
-virtual devices (pass --virtual N; efficiency there only reflects how well
-the programs shard, not hardware speedup). Prints one JSON line per point.
+On the GPUs of a host this reports their scaling; without them it still
+runs via virtual devices (pass --virtual N; efficiency there only reflects
+how well the programs shard, not hardware speedup). Prints one JSON line
+per point.
 
 Usage: python bench_scaling.py [--virtual 8] [--sizes 1,2,4,8]
 """
@@ -41,7 +42,7 @@ def main():
     else:
         import jax
 
-    from roborts_slam_tpu.parallel.multihost import (
+    from roborts_slam.parallel.multihost import (
         initialize_distributed, scaling_run, spa_scaling_workload)
 
     initialize_distributed()

@@ -1,12 +1,12 @@
 """Distributed pose-graph solve over a device mesh.
 
 Usage:
-  python examples/distributed_spa.py [--devices 8] [--nodes 1024]
+  python examples/distributed_spa.py [--devices 4] [--nodes 1024] [--cpu]
 
 Builds a noisy loop pose graph, solves it single-device, then re-solves
 with edges sharded across the mesh (psum-reduced Gauss-Newton) and checks
-both agree. On CPU, devices are virtualized; on a pod this is the real
-multi-chip path (see roborts_slam_tpu/parallel/multihost.py).
+both agree. Runs on the active backend (the GPUs of this host); ``--cpu``
+runs it on ``--devices`` virtual CPU devices instead.
 """
 
 import argparse
@@ -18,27 +18,33 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--devices", type=int, default=8)
+    ap.add_argument("--devices", type=int, default=4)
     ap.add_argument("--nodes", type=int, default=1024)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on --devices virtual CPU devices")
     args = ap.parse_args()
 
-    if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    if args.cpu:
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={args.devices}").strip()
     import jax
 
-    if jax.default_backend() not in ("tpu",):
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    from roborts_slam.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import time
 
     import numpy as np
 
-    from roborts_slam_tpu.backend.spa import solve_pose_graph
-    from roborts_slam_tpu.parallel.dist_spa import solve_pose_graph_sharded
-    from roborts_slam_tpu.parallel.mesh import make_mesh
-    from roborts_slam_tpu.parallel.multihost import make_synthetic_loop_graph
+    from roborts_slam.backend.spa import solve_pose_graph
+    from roborts_slam.parallel.dist_spa import solve_pose_graph_sharded
+    from roborts_slam.parallel.mesh import make_mesh
+    from roborts_slam.parallel.multihost import make_synthetic_loop_graph
 
     n_dev = min(args.devices, len(jax.devices()))
     print(f"devices: {len(jax.devices())} ({jax.default_backend()}), using {n_dev}")

@@ -4,8 +4,8 @@ The BASELINE.md multi-host scenario: run SLAM over the three benchmark
 scenes, concatenate the resulting *real* pose graphs into one problem, and
 solve it with edges sharded across the device mesh (psum-reduced
 Gauss-Newton), verifying the sharded result against the single-device
-solve. On a pod the same script exercises ICI/DCN; here the mesh is
-virtualized (pass --devices).
+solve. By default the mesh is virtualized on the CPU (pass --devices);
+--real uses the GPUs of this host.
 
 Usage: python examples/mega_sequence.py [--devices 8] [--scans-per-scene 80]
 """
@@ -23,8 +23,8 @@ def main():
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--scans-per-scene", type=int, default=80)
     ap.add_argument("--real", action="store_true",
-                    help="use the attached real devices instead of a virtual "
-                         "CPU mesh (requires a pod with --devices chips)")
+                    help="use the attached GPUs instead of a virtual "
+                         "CPU mesh (needs --devices GPUs)")
     args = ap.parse_args()
 
     if not args.real:
@@ -37,15 +37,19 @@ def main():
     else:
         import jax
 
+    from roborts_slam.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import jax.numpy as jnp
     import numpy as np
 
-    from roborts_slam_tpu.backend.spa import PoseGraphData, solve_pose_graph
-    from roborts_slam_tpu.engine import SlamEngine
-    from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-    from roborts_slam_tpu.io.simulate import simulate_log
-    from roborts_slam_tpu.parallel.dist_spa import solve_pose_graph_sharded
-    from roborts_slam_tpu.parallel.mesh import make_mesh
+    from roborts_slam.backend.spa import PoseGraphData, solve_pose_graph
+    from roborts_slam.engine import SlamEngine
+    from roborts_slam.io.scenes import SCENES, load_scene_map
+    from roborts_slam.io.simulate import simulate_log
+    from roborts_slam.parallel.dist_spa import solve_pose_graph_sharded
+    from roborts_slam.parallel.mesh import make_mesh
     from tests.test_e2e_small import _small_config
 
     graphs = []

@@ -3,8 +3,8 @@
 Usage:
   python examples/run_slam.py [icra|rm|willow] [--async] [--save-map out.pgm]
 
-Simulates a loop trajectory through one of the reference's ground-truth maps
-(the stage-world scenes), runs the full online pipeline (front-end matching,
+Simulates a loop trajectory through one of the generated benchmark scenes
+(io/scenes.py), runs the full online pipeline (front-end matching,
 pose-graph back-end with loop closure), and reports ATE + stage timings.
 Runs on whatever JAX backend is active; pass --cpu to force the CPU backend.
 """
@@ -40,11 +40,16 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
-    from roborts_slam_tpu.config import load_config
-    from roborts_slam_tpu.engine import SlamEngine
-    from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-    from roborts_slam_tpu.io.simulate import simulate_log
-    from roborts_slam_tpu.utils.evaluation import ate_rmse, match_by_time
+    from roborts_slam.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
+    from roborts_slam.config import (SIMULATION_REFERENCE_PROFILE,
+                                     load_config)
+    from roborts_slam.engine import SlamEngine
+    from roborts_slam.io.scenes import SCENES, load_scene_map
+    from roborts_slam.io.simulate import simulate_log
+    from roborts_slam.utils.evaluation import ate_rmse, match_by_time
 
     scene = SCENES[args.scene]
     print(f"simulating {args.scene} ...")
@@ -53,8 +58,8 @@ def main():
                        range_noise=0.005, seed=args.seed)
     print(f"  {len(log)} scans, {scene.laser.num_beams} beams")
 
-    cfg = load_config("/root/reference/config/simulatin_param.yaml")
-    # CPU-friendly map resolutions for the example; on TPU keep the yaml's
+    cfg = load_config(SIMULATION_REFERENCE_PROFILE)
+    # CPU-friendly fine map for the example; on a GPU keep the profile's
     cfg = cfg.replace(fine_map_resolution=0.02, max_points=1152)
     engine = SlamEngine(cfg, log.laser,
                         synchronous_backend=not args.async_backend)
@@ -67,19 +72,19 @@ def main():
     print("\n" + engine.timers.report())
 
     if args.save_map:
-        from roborts_slam_tpu.utils.viz import save_map
+        from roborts_slam.utils.viz import save_map
 
         save_map(engine, args.save_map)
         print(f"map written to {args.save_map} (+ map_server YAML)")
 
     if args.render:
-        from roborts_slam_tpu.utils.viz import render_run
+        from roborts_slam.utils.viz import render_run
 
         render_run(engine, args.render, gt_poses=log.gt_poses)
         print(f"render written to {args.render}")
 
     if args.checkpoint:
-        from roborts_slam_tpu.io.checkpoint import save_checkpoint
+        from roborts_slam.io.checkpoint import save_checkpoint
 
         save_checkpoint(engine, args.checkpoint)
         print(f"checkpoint written to {args.checkpoint}")

@@ -1,33 +1,32 @@
-"""roborts_slam_tpu — a TPU-native 2D LiDAR SLAM engine.
+"""The package's former import name, kept as an alias of ``roborts_slam``.
 
-A from-scratch JAX/XLA/Pallas re-design with the full capability surface of
-the reference RoboRTS-Edu-SLAM C++/ROS package: correlative scan matching
-(Olson 2009), Gauss-Newton scan refinement, occupancy-grid map pyramid,
-Karto-style pose-graph construction with loop closure, and SPA pose-graph
-optimization — re-architected as pure-function pipelines over fixed-shape
-arrays, batched/sharded across TPU device meshes.
-"""
+``import <former name>.engine`` yields the very module object
+``roborts_slam.engine``: a finder maps every submodule name onto the
+package's own, so no second copy of any module is loaded."""
 
-from .config import SlamConfig, load_config
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
+import roborts_slam
 
-def __getattr__(name):
-    # lazy top-level conveniences (avoid importing jax-heavy modules on
-    # package import)
-    if name == "SlamEngine":
-        from .engine import SlamEngine
-
-        return SlamEngine
-    if name == "ScanLog":
-        from .io.scan_log import ScanLog
-
-        return ScanLog
-    if name == "LaserModel":
-        from .models.scan import LaserModel
-
-        return LaserModel
-    raise AttributeError(name)
+_FORMER = __name__
 
 
-__version__ = "0.1.0"
-__all__ = ["SlamConfig", "load_config", "SlamEngine", "ScanLog", "LaserModel"]
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_FORMER + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        return importlib.import_module(
+            "roborts_slam" + spec.name[len(_FORMER):])
+
+    def exec_module(self, module):
+        pass
+
+
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_FORMER] = roborts_slam

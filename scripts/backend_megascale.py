@@ -1,6 +1,6 @@
 """Mega-sequence back-end scaling: flat per-scan cost at >=10k scans.
 
-VERDICT r1 item 4's "Done" criterion: demonstrate a >=10k-scan run with
+Demonstrates a >=10k-scan run with
 flat per-scan back-end cost. The round-1 back end was O(N^2) over a run
 (full barycenter-array rebuilds per scan + serial loop verification);
 round 2 made barycenters an O(1)-append incremental cache, vectorized the
@@ -54,15 +54,15 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from roborts_slam_tpu.backend.processor import Backend, BackendSpec
-    from roborts_slam_tpu.config import SlamConfig
-    from roborts_slam_tpu.engine import ScanStore
-    from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-    from roborts_slam_tpu.io.simulate import (
+    from roborts_slam.backend.processor import Backend, BackendSpec
+    from roborts_slam.config import SlamConfig
+    from roborts_slam.engine import ScanStore
+    from roborts_slam.io.scenes import SCENES, load_scene_map
+    from roborts_slam.io.simulate import (
         auto_loop_waypoints, path_to_trajectory, plan_loop_path, raycast,
     )
-    from roborts_slam_tpu.models.grid_map import CountMapSpec
-    from roborts_slam_tpu.models.scan import scan_from_ranges
+    from roborts_slam.models.grid_map import CountMapSpec
+    from roborts_slam.models.scan import scan_from_ranges
 
     # cheap-but-real back-end config: coarse resolutions keep the CPU
     # dispatches small; thresholds/tiers are the test-suite profile

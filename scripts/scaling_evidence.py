@@ -1,23 +1,17 @@
-"""Scaling evidence for the distributed SPA solve (VERDICT r1 item 10).
+"""Structure of the distributed SPA solve and the sharded chain matcher.
 
-Without a pod, the ≥80%-at-≥2-hosts target cannot be measured directly;
-this script produces the evidence a model needs and the regression hooks
-that keep it honest:
+Checks, on ``--devices`` virtual CPU devices, what does not need the cards:
 
 1. **Collective count from compiled HLO**: the edge-sharded solve is
    lowered for an N-device mesh and its all-reduces are counted. The count
    must be independent of the edge count (it scales with solver/CG
-   iterations only) — that is the structural property that makes scaling
-   efficiency approach 1 as edges grow.
-2. **Bytes-on-the-wire per CG iteration**: each psum moves O(poses) data
-   (the HVP vector / gradient / diagonal), independent of the edge shard
-   size, so the comm:compute ratio falls linearly with edges/device.
-3. **Modeled communication fraction** vs edge count for a v5e-class chip
-   (197 TFLOPs bf16, ~45 GB/s per ICI link pair, ~1 µs collective launch),
-   tabulated so the ≥80% claim is tied to explicit arithmetic.
-4. **Virtual-mesh sharding-overhead curve** (bench_scaling.py): not a
-   hardware measurement (virtual devices share 2 cores) but pins the
-   sharded programs' overhead trend.
+   iterations only); each psum moves O(poses) data, independent of the
+   edge shard size.
+2. **The sharded programs run**: the edge-sharded SPA solve on 1 and 2
+   devices and the chain-match fan-out on 1..N devices, with their host
+   wall times. Virtual devices share the host's cores, so these times say
+   nothing about scaling on GPUs; measure that with ``python chip_smoke.py
+   --four-cards`` and a trace on the cards.
 
 Run: python scripts/scaling_evidence.py [--devices 8]
 """
@@ -49,11 +43,11 @@ def main():
     import jax.numpy as jnp  # noqa: F401
     import numpy as np
 
-    from roborts_slam_tpu.parallel.dist_spa import (
+    from roborts_slam.parallel.dist_spa import (
         pad_edges_to, solve_pose_graph_sharded,
     )
-    from roborts_slam_tpu.parallel.mesh import make_mesh
-    from roborts_slam_tpu.parallel.multihost import make_synthetic_loop_graph
+    from roborts_slam.parallel.mesh import make_mesh
+    from roborts_slam.parallel.multihost import make_synthetic_loop_graph
 
     mesh = make_mesh(args.devices)
     axis = mesh.axis_names[0]
@@ -87,37 +81,11 @@ def main():
           "psum + scalar reductions). Per-iteration collective VOLUME is "
           "O(nodes), independent of the edge count.\n")
 
-    # --- 2+3. comm fraction model anchored on measured device numbers ---
-    # per-edge compute: measured on a v5e-class chip via the K-slope
-    # protocol over chained lm_solve calls (2026-08-19, 2048 & 16384-node
-    # loop graphs): ~55 ns per edge per CG iteration (gather-bound).
-    EDGE_NS = 55e-9
-    ICI_BW = 45e9                # bytes/s usable per link direction
-    LAUNCH = 2e-6                # per-collective latency (s)
-    print("| edges/device | nodes | psum bytes/CG | comm s/CG |"
-          " compute s/CG | comm fraction | efficiency model |")
-    print("|---|---|---|---|---|---|---|")
-    for edges_dev in (1_000, 10_000, 100_000, 1_000_000):
-        n_nodes = min(edges_dev, 200_000)
-        psum_bytes = n_nodes * 3 * 4      # HVP vector f32
-        t_comm = psum_bytes / ICI_BW + 3 * LAUNCH   # 1 vector + ~2 scalar psums
-        t_comp = edges_dev * EDGE_NS
-        frac = t_comm / (t_comm + t_comp)
-        print(f"| {edges_dev:,} | {n_nodes:,} | {psum_bytes:,} |"
-              f" {t_comm*1e6:.1f}µs | {t_comp*1e6:.1f}µs |"
-              f" {frac*100:.1f}% | {(1-frac)*100:.0f}% |")
-    print("\n(per-edge cost measured on-device; at these constants the ≥80% "
-          "efficiency bound holds from ~1k edges/device upward — any "
-          "realistic shard of a mega-sequence pose graph)\n")
-
-    # --- 3b. MEASURED multi-device SPA run (VERDICT r3 item 6): the
-    # edge-sharded solve executed on a real 2-virtual-device mesh — the
-    # collectives actually run, measuring the sharded program's true
-    # overhead (XLA-CPU multithreads one device over both cores, so
-    # wall-clock speedup is structurally impossible here). ---
+    # --- 2a. the edge-sharded solve executed on a 2-virtual-device mesh:
+    # the collectives actually run ---
     import time as _time
 
-    from roborts_slam_tpu.parallel.mesh import make_mesh as _mk
+    from roborts_slam.parallel.mesh import make_mesh as _mk
 
     data_m = make_synthetic_loop_graph(4096, seed=1)
     meas = {}
@@ -138,38 +106,30 @@ def main():
             jax.block_until_ready(rj())
             ts.append(_time.perf_counter() - t0)
         meas[nd] = min(ts)
-    over2 = meas[2] / meas[1] - 1.0
-    print("### Measured >=2-device SPA run (4096-node loop graph)\n")
-    print("XLA-CPU already multithreads ONE device across both host cores, "
-          "so a virtual mesh cannot show wall-clock speedup; what the "
-          "2-device run measures is the REAL cost of the sharded program — "
-          "partitioning + the all-reduces actually executing:\n")
-    print("| devices | best-of-3 s | sharding overhead |")
-    print("|---|---|---|")
-    print(f"| 1 | {meas[1]:.3f} | — |")
-    print(f"| 2 | {meas[2]:.3f} | {over2 * 100:+.0f}% |")
-    print(f"\nThe overhead bound feeds the model above: "
-          f"{max(over2, 0.0) * meas[1] * 1e3:.0f} ms of collective+partition "
-          "cost per solve at 4096 nodes on a 2-core host — on ICI the same "
-          "O(nodes) volume moves in microseconds (model rows). The ns/edge "
-          "anchor remains the on-chip K-slope measurement.\n")
+    print("### Edge-sharded SPA run (4096-node loop graph, virtual CPU "
+          "devices)\n")
+    print("| devices | best-of-3 s (host) |")
+    print("|---|---|")
+    for nd, t in meas.items():
+        print(f"| {nd} | {t:.3f} |")
+    print()
 
-    # --- 3c. sharded chain-match fan-out: strong scaling over REAL map
-    # content (VERDICT r3 item 6 — sharded_match previously had only a
-    # correctness test). A batch of back-end chain-match problems built
-    # from a simulated icra run is matched on 1..N-device meshes. ---
-    from roborts_slam_tpu.config import load_config
-    from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-    from roborts_slam_tpu.io.simulate import simulate_log
-    from roborts_slam_tpu.models.grid_map import backend_map_specs
-    from roborts_slam_tpu.models.scan import scan_from_ranges
-    from roborts_slam_tpu.frontend.matchers import MatcherParams
-    from roborts_slam_tpu.parallel.sharded_match import (
+    # --- 2b. sharded chain-match fan-out over real map content: a batch
+    # of back-end chain-match problems built from a simulated icra run is
+    # matched on 1..N-device meshes ---
+    from roborts_slam.config import (SIMULATION_REFERENCE_PROFILE,
+                                     load_config)
+    from roborts_slam.io.scenes import SCENES, load_scene_map
+    from roborts_slam.io.simulate import simulate_log
+    from roborts_slam.models.grid_map import backend_map_specs
+    from roborts_slam.models.scan import scan_from_ranges
+    from roborts_slam.frontend.matchers import MatcherParams
+    from roborts_slam.parallel.sharded_match import (
         make_batched_chain_matcher,
     )
     import numpy as _np
 
-    cfg = load_config("/root/reference/config/simulatin_param.yaml")
+    cfg = load_config(SIMULATION_REFERENCE_PROFILE)
     cfg = cfg.replace(fine_map_resolution=0.02, max_points=384)
     sc = SCENES["icra"]
     log = simulate_log(load_scene_map(sc), sc.laser,
@@ -199,11 +159,10 @@ def main():
     cvalid = _np.ones((B, K), bool)
     batch_args = (cpts, cmsk, cposes, cvalid, qpts, qmsk, qnv, inits, inits)
 
-    print("### Sharded chain-match fan-out: strong scaling, real icra "
-          f"content (B={B} chains x {K} scans)\n")
-    print("| devices | best-of-3 s | vs 1-dev | note |")
-    print("|---|---|---|---|")
-    tbase = None
+    print("### Sharded chain-match fan-out, icra content "
+          f"(B={B} chains x {K} scans, virtual CPU devices)\n")
+    print("| devices | best-of-3 s (host) |")
+    print("|---|---|")
     for nd in [n for n in (1, 2, 4, 8) if n <= args.devices]:
         m = _mk(nd)
         f = make_batched_chain_matcher(cspec, fspec, matcher,
@@ -216,37 +175,10 @@ def main():
             t0 = _time.perf_counter()
             jax.block_until_ready(f(*batch_args))
             ts.append(_time.perf_counter() - t0)
-        t = min(ts)
-        if tbase is None:
-            tbase = t
-        note = ("real 2-core parallelism" if nd <= 2
-                else "virtual: >2 devices share 2 cores")
-        print(f"| {nd} | {t:.3f} | {tbase / t:.2f}x | {note} |")
-    print("\nFlat wall-clock across mesh sizes = MEASURED zero sharding "
-          "overhead: the fan-out has no cross-device communication until "
-          "the (B,3) result gather, so on a pod the same program scales "
-          "with device count at ~100% efficiency (each chip rebuilds + "
-          "matches its own chain slice; XLA-CPU's one-device multithreading "
-          "masks speedup here, exactly as in the SPA run above).\n")
+        print(f"| {nd} | {min(ts):.3f} |")
+    print("\nThe fan-out has no cross-device communication until the (B,3) "
+          "result gather.\n")
 
-    # --- 4. virtual-mesh sharding-overhead curve ---
-    from roborts_slam_tpu.parallel.multihost import (
-        scaling_run, spa_scaling_workload,
-    )
-
-    wf = spa_scaling_workload(n_nodes=512, max_iters=args.max_iters,
-                              cg_iters=args.cg_iters)
-    sizes = [n for n in (1, 2, 4, 8) if n <= args.devices]
-    print("| devices | seconds | edge-iters/s | wall-time vs 1-dev |")
-    print("|---|---|---|---|")
-    pts = scaling_run(wf, sizes)
-    base_s = pts[0].seconds
-    for p in pts:
-        print(f"| {p.n_devices} | {p.seconds:.3f} | {p.throughput:,.0f} |"
-              f" {p.seconds / base_s:.2f}x |")
-    print("\n(virtual devices share 2 host cores: the wall-clock column is "
-          "contention, not hardware scaling; the evidence above is the "
-          "collective structure + model)")
     return 0
 
 

@@ -6,9 +6,9 @@ import numpy as np
 
 
 def build_matcher_problem(batch: int = 4, k: int = 4, p: int = 128):
-    from roborts_slam_tpu.frontend.matchers import MatcherParams
-    from roborts_slam_tpu.config import SlamConfig
-    from roborts_slam_tpu.models.grid_map import ProbMapSpec
+    from roborts_slam.frontend.matchers import MatcherParams
+    from roborts_slam.config import SlamConfig
+    from roborts_slam.models.grid_map import ProbMapSpec
 
     cfg = SlamConfig(use_optimize_scan_match=False,
                      coarse_search_space_size=0.4,

@@ -5,7 +5,7 @@ devices per process -> 8 global), builds the global (data, graph) mesh, and
 runs the two sharded programs:
 
 - edge-sharded SPA over the intra-process ``graph`` axis AND over the
-  cross-process ``data`` axis (the DCN-path psums);
+  cross-process ``data`` axis (the cross-process psums);
 - the sharded batch chain matcher over ``data`` (cross-process batch
   fan-out).
 
@@ -33,7 +33,7 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from roborts_slam_tpu.parallel.multihost import (  # noqa: E402
+from roborts_slam.parallel.multihost import (  # noqa: E402
     global_mesh, initialize_distributed, make_synthetic_loop_graph,
 )
 
@@ -47,7 +47,7 @@ def main():
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from roborts_slam_tpu.parallel.dist_spa import solve_pose_graph_sharded
+    from roborts_slam.parallel.dist_spa import solve_pose_graph_sharded
 
     mesh = global_mesh()          # (data=nproc, graph=4)
     assert dict(zip(mesh.axis_names, mesh.devices.shape)) == {
@@ -55,10 +55,10 @@ def main():
 
     data = make_synthetic_loop_graph(96, seed=3)
     results = {}
-    # intra-process psums (ICI analog)
+    # intra-process psums
     p_g, c_g, it_g = solve_pose_graph_sharded(data, mesh, axis="graph",
                                               max_iters=6, cg_iters=15)
-    # cross-process psums (DCN analog) — the path only this test exercises
+    # cross-process psums — the path only this test exercises
     p_d, c_d, it_d = solve_pose_graph_sharded(data, mesh, axis="data",
                                               max_iters=6, cg_iters=15)
     np.save(os.path.join(out_dir, f"spa_graph_{pid}.npy"), np.asarray(p_g))
@@ -70,7 +70,7 @@ def main():
     from tests._mp_matcher_fixture import build_matcher_problem
 
     matcher_fn_args, arrays = build_matcher_problem()
-    from roborts_slam_tpu.parallel.sharded_match import (
+    from roborts_slam.parallel.sharded_match import (
         make_batched_chain_matcher,
     )
 

@@ -1,15 +1,19 @@
-"""Aux subsystems: log-odds cell model, stage timers, roofline accounting."""
+"""Aux subsystems: log-odds cell model, stage timers, roofline accounting,
+the compile cache."""
 
 import os
-import numpy as np
-import jax.numpy as jnp
 
-from roborts_slam_tpu.models.grid_map import (
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from roborts_slam.models.grid_map import (
     CountMapSpec, log_odds_map_states, log_odds_to_prob, make_log_odds_map,
     prob_to_log_odds,
 )
-from roborts_slam_tpu.ops.raster import update_log_odds_map
-from roborts_slam_tpu.utils.profiling import StageTimers, roofline_report
+from roborts_slam.ops.raster import update_log_odds_map
+from roborts_slam.utils.profiling import (DEVICE_PEAKS, StageTimers,
+                                          roofline_report)
 
 
 def test_log_odds_conversions():
@@ -60,27 +64,45 @@ def test_stage_timers_report():
 
 def test_roofline_report():
     r = roofline_report("corr", seconds=1e-3, flops=1e9, bytes_moved=1e8,
-                        device_kind="TPU v5 lite")
+                        device_kind="NVIDIA H100 80GB HBM3")
     np.testing.assert_allclose(r["achieved_tflops"], 1.0)
     np.testing.assert_allclose(r["achieved_gbps"], 100.0)
-    assert r["bound"] in ("memory", "compute")
+    np.testing.assert_allclose(r["peak_tflops"], 67.0)      # float32
+    np.testing.assert_allclose(r["peak_gbps"], 3350.0)
+    assert r["bound"] == "memory"       # 100 GB/s of 3.35 TB/s > 1 of 67 TF
+    assert DEVICE_PEAKS["NVIDIA H100 80GB HBM3"]["bf16_tflops"] == 989.0
 
 
-def test_measurement_results_seed_from_committed_report(tmp_path, monkeypatch):
-    """out/ is gitignored, so a fresh checkout has no results.json; the
-    measurement driver must seed its store from the committed report's
-    raw-records block instead of silently rendering empty tables (this
-    regressed once: a partial e2e re-measure dropped every other section)."""
-    import sys
+def test_device_peaks_unknown_device_is_an_error():
+    with pytest.raises(KeyError, match="no published peaks"):
+        roofline_report("corr", seconds=1e-3, flops=1e9, bytes_moved=1e8,
+                        device_kind="cpu")
+    assert "cpu" not in DEVICE_PEAKS
 
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-    import measure_reference as MR
 
-    monkeypatch.setattr(MR, "RESULTS",
-                        str(tmp_path / "missing" / "results.json"))
-    res = MR.load_results()
-    assert any(k.startswith("ref/") for k in res), sorted(res)[:5]
-    assert any(k.startswith("ours_tpu_e2e") for k in res)
-    # and the seeded store renders a report with non-empty tables
-    text = MR.render_report(res)
-    assert "| icra |" in text and "Sustained end-to-end" in text
+def test_compile_cache_honours_environment(monkeypatch, tmp_path):
+    import jax
+
+    from roborts_slam.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    # the variable is JAX's own: the helper sets nothing on top of it
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_in_repo(monkeypatch):
+    import jax
+
+    from roborts_slam.utils import compile_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        got = compile_cache.enable_compile_cache()
+        assert got == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == got
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

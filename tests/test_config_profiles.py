@@ -3,12 +3,15 @@ accepts reference-format parameter files (reference: src/param_config.h
 reads these keys from the ROS parameter server; here load_config reads
 them from YAML)."""
 
+import dataclasses
 import math
 import os
 
 import pytest
 
-from roborts_slam_tpu.config import SlamConfig, load_config
+from roborts_slam.config import (SIMULATION_REFERENCE_PROFILE, SlamConfig,
+                                 load_config, parse_flat_yaml,
+                                 read_flat_yaml)
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 
@@ -45,20 +48,71 @@ def test_unknown_keys_ignored(tmp_path):
     assert cfg.map_resolution == 0.1
 
 
-REFERENCE_YAMLS = "/root/reference/config"
-
-
-@pytest.mark.skipif(not os.path.isdir(REFERENCE_YAMLS),
-                    reason="reference checkout not present")
 def test_reference_yaml_profiles_load_unchanged():
-    """The reference's own ROS parameter YAMLs (param_config.h keys) load
-    through load_config with no translation step."""
-    sim = load_config(os.path.join(REFERENCE_YAMLS, "simulatin_param.yaml"))
+    """The rebuilt reference simulation profile (param_config.h keys) loads
+    through load_config with no translation step and carries the
+    reference's values."""
+    assert os.path.samefile(os.path.dirname(SIMULATION_REFERENCE_PROFILE),
+                            CONFIGS)
+    sim = load_config(SIMULATION_REFERENCE_PROFILE)
     assert sim.fine_map_resolution == 0.01
     assert sim.coarse_map_resolution == 0.08
     assert sim.gaussian_blur_offset == 0.88
     assert sim.map_min_passthrough == 4.0
+    # the tiers of native/baseline_correlative.cpp:41-45
+    assert (sim.coarse_search_space_size, sim.coarse_search_space_resolution,
+            sim.coarse_search_angle_offset) == (0.6, 0.05, 0.523)
+    assert sim.super_fine_search_angle_resolution == 0.00349
+    assert sim.super_fine_use_point_size == 100
 
-    real = load_config(os.path.join(REFERENCE_YAMLS, "real_robot_param.yaml"))
+    real = load_config(os.path.join(CONFIGS, "real_robot.yaml"))
     assert isinstance(real, SlamConfig)
     assert real.map_resolution > 0
+
+
+@pytest.mark.parametrize("name", ["simulation.yaml", "real_robot.yaml",
+                                  "simulation_reference.yaml"])
+def test_flat_yaml_parser_reads_profiles(name):
+    """Every entry of the shipped profiles parses to a typed scalar of a
+    known SlamConfig field (booleans, ints, floats)."""
+    fields = {f.name: f.type for f in dataclasses.fields(SlamConfig)}
+    raw = read_flat_yaml(os.path.join(CONFIGS, name))
+    assert len(raw) > 40
+    for key, val in raw.items():
+        assert key in fields, key
+        want = {"bool": bool, "int": (int, float), "float": (int, float),
+                "str": str}[str(fields[key])]
+        assert isinstance(val, want) and not (
+            want != bool and isinstance(val, bool)), (key, val)
+
+
+def test_flat_yaml_parser_subset():
+    text = (
+        "# map_server style header comment\n"
+        "image: icra.pgm   # trailing comment\n"
+        "resolution: 0.05\n"
+        "origin: [-1.5, 2.0, 0.0]\n"
+        "negate: 0\n"
+        "empty_list: []\n"
+        "flag: true\n"
+        "off_flag: False\n"
+        "name: 'a # not a comment'\n"
+        "hash#inside: b#c\n"
+        "nothing:\n"
+        "\n"
+        "---\n"
+    )
+    got = parse_flat_yaml(text)
+    assert got == {"image": "icra.pgm", "resolution": 0.05,
+                   "origin": [-1.5, 2.0, 0.0], "negate": 0,
+                   "empty_list": [], "flag": True, "off_flag": False,
+                   "name": "a # not a comment", "hash#inside": "b#c",
+                   "nothing": None}
+    assert isinstance(got["negate"], int)
+
+
+@pytest.mark.parametrize("bad", ["parent:\n  child: 1\n", "- item\n",
+                                 "origin: [1, 2\n", "no colon here\n"])
+def test_flat_yaml_parser_rejects_nesting(bad):
+    with pytest.raises(ValueError):
+        parse_flat_yaml(bad)

@@ -1,15 +1,16 @@
 """Batched correlative matcher vs the serial CPU reference semantics."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
-from roborts_slam_tpu.models.grid_map import ProbMapSpec
-from roborts_slam_tpu.ops.correlative import (
+from roborts_slam.models.grid_map import ProbMapSpec
+from roborts_slam.ops.correlative import (
     COARSE, FINE, SUPER, CorrelativeParams, correlative_scan_match,
     find_best_candidate, penalize_scores, score_candidates,
 )
-from roborts_slam_tpu.bench.cpu_reference import (
+from roborts_slam.bench.cpu_reference import (
     find_best_serial, penalize_serial, score_candidates_serial,
 )
 
@@ -87,8 +88,8 @@ def test_find_best_matches_serial_reference():
 def test_match_recovers_known_offset():
     """End-to-end: build a map from a scan, perturb the pose, expect the
     matcher to recover the true pose within a cell."""
-    from roborts_slam_tpu.ops.raster import stamp_scan
-    from roborts_slam_tpu.models.grid_map import ProbMap
+    from roborts_slam.ops.raster import stamp_scan
+    from roborts_slam.models.grid_map import ProbMap
 
     rng = np.random.default_rng(3)
     spec = ProbMapSpec(resolution=0.05, height=256, width=256, deviation=0.1,
@@ -125,3 +126,35 @@ def test_match_recovers_known_offset():
     # covariance present and positive
     cov = np.asarray(res.cov)
     assert cov[0, 0] > 0 and cov[1, 1] > 0 and cov[2, 2] > 0
+
+
+@pytest.mark.parametrize("ulps", [-2, 2, 8])
+def test_angular_covariance_ignores_rounding_of_the_best_pose(ulps):
+    """A best pose on the candidate grid has its neighbours exactly one
+    search step away; float32 rounding of its map coordinates (here a few
+    ulps at ~2000 cells) must not drop them from the angular covariance."""
+    from roborts_slam.ops.correlative import angular_covariance
+
+    spec = ProbMapSpec(resolution=0.01, height=4096, width=4096,
+                       deviation=0.03, blur_offset=0.88, default_prob=0.5)
+    params = CorrelativeParams(
+        search_space_size=0.04, search_space_resolution=0.01,
+        search_angle_offset=0.0349, search_angle_resolution=0.00349,
+        response_threshold=0.5, use_point_size=100,
+        use_center_penalty=True, tier=SUPER)
+    A, N = params.n_angles, params.n_space
+    angles = jnp.arange(A, dtype=jnp.float32) * 0.00349
+    xs = 2000.0 + jnp.arange(N, dtype=jnp.float32)
+    ys = 1500.0 + jnp.arange(N, dtype=jnp.float32)
+    rng = np.random.default_rng(0)
+    scores = jnp.asarray(rng.uniform(0.8, 0.9, (A, N, N)), jnp.float32)
+    best = jnp.array([xs[2], ys[2], angles[A // 2]], jnp.float32)
+
+    def var_aa(pose):
+        cov = angular_covariance(params, spec, scores, angles, xs, ys, pose,
+                                 jnp.float32(0.9), jnp.eye(3))
+        return float(cov[2, 2])
+
+    moved = best.at[:2].set(np.float32(best[:2]) + ulps * np.spacing(
+        np.float32(best[:2])))
+    assert var_aa(moved) == pytest.approx(var_aa(best), rel=1e-6)

@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from roborts_slam_tpu.io.dedistort import dedistort_scan, interpolate_poses
-from roborts_slam_tpu.models.scan import LaserModel
+from roborts_slam.io.dedistort import dedistort_scan, interpolate_poses
+from roborts_slam.models.scan import LaserModel
 
 
 def _wall_range(angle: float, half: float = 3.0) -> float:

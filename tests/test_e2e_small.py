@@ -8,11 +8,11 @@ ground truth.
 import numpy as np
 import pytest
 
-from roborts_slam_tpu.config import SlamConfig
-from roborts_slam_tpu.engine import SlamEngine
-from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-from roborts_slam_tpu.io.simulate import simulate_log
-from roborts_slam_tpu.utils.evaluation import ate_rmse, match_by_time
+from roborts_slam.config import SlamConfig
+from roborts_slam.engine import SlamEngine
+from roborts_slam.io.scenes import SCENES, load_scene_map
+from roborts_slam.io.simulate import simulate_log
+from roborts_slam.utils.evaluation import ate_rmse, match_by_time
 
 
 def _small_config():

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from roborts_slam_tpu.utils import geometry as geo
+from roborts_slam.utils import geometry as geo
 
 
 def test_normalize_angle():
@@ -67,7 +67,7 @@ def test_pose_change_enough():
 
 def test_bound_box():
     import numpy as np
-    from roborts_slam_tpu.utils.geometry import (
+    from roborts_slam.utils.geometry import (
         bound_box_contains, bound_box_union, points_bound_box)
 
     pts = jnp.asarray(np.array([[1.0, 2.0], [-1.0, 0.5], [3.0, -2.0],

@@ -1,4 +1,4 @@
-"""Golden-trajectory regression (VERDICT r1 item 5).
+"""Golden-trajectory regression.
 
 Replays the checked-in icra log slice (tests/data/golden_icra.npz,
 generated by tools/make_golden.py) through the engine with the reference
@@ -32,7 +32,7 @@ def _data(scene):
 
 
 def _replay_and_pin(scene):
-    from roborts_slam_tpu.models.scan import LaserModel
+    from roborts_slam.models.scan import LaserModel
     from tools.make_golden import build_engine
 
     golden = _data(scene)

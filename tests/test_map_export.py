@@ -4,10 +4,10 @@ pair (reference ships its GT maps as maps/*.pgm + maps/*.yaml)."""
 import numpy as np
 import pytest
 
-from roborts_slam_tpu.engine import SlamEngine
-from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-from roborts_slam_tpu.io.simulate import simulate_log
-from roborts_slam_tpu.utils.viz import save_map
+from roborts_slam.engine import SlamEngine
+from roborts_slam.io.scenes import SCENES, load_scene_map
+from roborts_slam.io.simulate import simulate_log
+from roborts_slam.utils.viz import save_map
 from tests.test_e2e_small import _small_config
 
 
@@ -40,10 +40,9 @@ def test_save_map_pair(tmp_path, short_engine):
     assert (data != 205).any()            # some known cells
 
     # YAML carries resolution + a world origin consistent with the engine
-    import yaml
+    from roborts_slam.config import read_flat_yaml
 
-    with open(stem + ".yaml") as f:
-        meta = yaml.safe_load(f)
+    meta = read_flat_yaml(stem + ".yaml")
     assert meta["image"] == "built.pgm"
     assert meta["resolution"] == pytest.approx(
         short_engine.fspec.pub_spec.resolution)

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from roborts_slam_tpu.config import SlamConfig
-from roborts_slam_tpu.frontend.matchers import MatcherParams, scan_match
-from roborts_slam_tpu.models.grid_map import ProbMap, ProbMapSpec, make_prob_map
-from roborts_slam_tpu.ops.gauss_newton import OptimizeParams, optimize_scan_match
-from roborts_slam_tpu.ops.raster import stamp_scan
+from roborts_slam.config import SlamConfig
+from roborts_slam.frontend.matchers import MatcherParams, scan_match
+from roborts_slam.models.grid_map import ProbMap, ProbMapSpec, make_prob_map
+from roborts_slam.ops.gauss_newton import OptimizeParams, optimize_scan_match
+from roborts_slam.ops.raster import stamp_scan
 
 
 def _box_scan(n=160, max_points=192):

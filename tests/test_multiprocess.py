@@ -1,9 +1,9 @@
-"""Real multi-process jax.distributed coverage (VERDICT r1 item 3).
+"""Real multi-process jax.distributed coverage.
 
 Spawns 2 local processes × 4 virtual CPU devices (8 global) through
 ``initialize_distributed`` and runs the edge-sharded SPA (psums over both
-the intra-process ``graph`` axis and the cross-process ``data`` axis — the
-DCN path) plus the sharded batch chain matcher, asserting both processes
+the intra-process ``graph`` axis and the cross-process ``data`` axis)
+plus the sharded batch chain matcher, asserting both processes
 agree and match the single-process results. SURVEY §4 prescribes exactly
 this: "multi-host tests runnable on CPU via jax.distributed with multiple
 local processes".
@@ -44,8 +44,8 @@ def test_two_process_distributed(tmp_path):
 
     # --- SPA: both processes identical; both axes identical; matches the
     # single-process solve ---
-    from roborts_slam_tpu.backend.spa import solve_pose_graph
-    from roborts_slam_tpu.parallel.multihost import make_synthetic_loop_graph
+    from roborts_slam.backend.spa import solve_pose_graph
+    from roborts_slam.parallel.multihost import make_synthetic_loop_graph
 
     pg = [np.load(tmp_path / f"spa_graph_{pid}.npy") for pid in range(2)]
     pd = [np.load(tmp_path / f"spa_data_{pid}.npy") for pid in range(2)]
@@ -59,7 +59,7 @@ def test_two_process_distributed(tmp_path):
 
     # --- sharded batch matcher: processes agree and match single-process ---
     from tests._mp_matcher_fixture import build_matcher_problem
-    from roborts_slam_tpu.parallel.sharded_match import (
+    from roborts_slam.parallel.sharded_match import (
         make_batched_chain_matcher,
     )
 

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from roborts_slam_tpu.io.native_log import (
+from roborts_slam.io.native_log import (
     NativeScanStream, decode_scan, native_available, write_rslg,
 )
-from roborts_slam_tpu.io.scan_log import ScanLog
-from roborts_slam_tpu.models.scan import LaserModel, scan_from_ranges
+from roborts_slam.io.scan_log import ScanLog
+from roborts_slam.models.scan import LaserModel, scan_from_ranges
 
 pytestmark = pytest.mark.skipif(not native_available(),
                                 reason="no native toolchain")

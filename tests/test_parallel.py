@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from roborts_slam_tpu.backend.spa import solve_pose_graph
-from roborts_slam_tpu.parallel.dist_spa import solve_pose_graph_sharded
-from roborts_slam_tpu.parallel.mesh import make_mesh
+from roborts_slam.backend.spa import solve_pose_graph
+from roborts_slam.parallel.dist_spa import solve_pose_graph_sharded
+from roborts_slam.parallel.mesh import make_mesh
 from tests.test_spa import _make_loop_graph
 
 
@@ -25,11 +25,11 @@ def test_sharded_spa_matches_single_device():
 
 
 def test_sharded_batch_scan_match():
-    from roborts_slam_tpu.frontend.matchers import MatcherParams
-    from roborts_slam_tpu.config import SlamConfig
-    from roborts_slam_tpu.models.grid_map import ProbMapSpec, make_prob_map
-    from roborts_slam_tpu.ops.raster import stamp_scan
-    from roborts_slam_tpu.parallel.sharded_match import make_batched_scan_matcher
+    from roborts_slam.frontend.matchers import MatcherParams
+    from roborts_slam.config import SlamConfig
+    from roborts_slam.models.grid_map import ProbMapSpec, make_prob_map
+    from roborts_slam.ops.raster import stamp_scan
+    from roborts_slam.parallel.sharded_match import make_batched_scan_matcher
 
     cfg = SlamConfig(use_optimize_scan_match=False,
                      coarse_search_space_size=0.4,
@@ -82,8 +82,8 @@ def test_sharded_batch_scan_match():
 def test_multihost_harness_cpu():
     """Mechanics only: the mesh/scaling harness runs on the virtual mesh
     (efficiency is meaningless on shared CPU cores; real numbers come from
-    pod runs)."""
-    from roborts_slam_tpu.parallel.multihost import (
+    the GPUs)."""
+    from roborts_slam.parallel.multihost import (
         global_mesh, scaling_run, spa_scaling_workload)
 
     m = global_mesh()
@@ -96,21 +96,21 @@ def test_multihost_harness_cpu():
 
 
 def test_sharded_chain_matcher_gather_equality():
-    """The sharded store-gather chain matcher (VERDICT r4 #5: the
-    sharded-map capacity path) must reproduce the single-device
-    chain_match_batch_gather bit-for-bit on an 8-chain batch over the
-    8-device mesh — per-device memory is then B/8 chains' map temps (the
-    compiler-verified claim in scripts/sharded_capacity.py)."""
-    from roborts_slam_tpu.backend.processor import (
+    """The sharded store-gather chain matcher (the sharded-map capacity
+    path) must reproduce the single-device chain_match_batch_gather
+    bit-for-bit on an 8-chain batch over the 8-device mesh — per-device
+    memory is then B/8 chains' map temps."""
+    from roborts_slam.backend.processor import (
         BackendSpec, chain_match_batch_gather,
     )
-    from roborts_slam_tpu.config import load_config
-    from roborts_slam_tpu.models.grid_map import pub_map_spec
-    from roborts_slam_tpu.parallel.sharded_match import (
+    from roborts_slam.config import (SIMULATION_REFERENCE_PROFILE,
+                                     load_config)
+    from roborts_slam.models.grid_map import pub_map_spec
+    from roborts_slam.parallel.sharded_match import (
         make_sharded_chain_matcher_gather,
     )
 
-    cfg = load_config("/root/reference/config/simulatin_param.yaml")
+    cfg = load_config(SIMULATION_REFERENCE_PROFILE)
     cfg = cfg.replace(max_points=64, max_chain_scans=4,
                       coarse_map_resolution=0.08, fine_map_resolution=0.04)
     laser_range = 3.0

@@ -1,11 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from roborts_slam_tpu.models.grid_map import (
+from roborts_slam.models.grid_map import (
     CountMap, CountMapSpec, ProbMap, ProbMapSpec, count_map_probs,
     count_map_states, make_count_map, make_prob_map,
 )
-from roborts_slam_tpu.ops.raster import (
+from roborts_slam.ops.raster import (
     dilate_with_kernel, stamp_scan, stamp_scan_batch, update_count_map,
 )
 

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from roborts_slam_tpu.engine import SlamEngine
-from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-from roborts_slam_tpu.io.simulate import simulate_log
-from roborts_slam_tpu.models.grid_map import ProbMap, ProbMapSpec, shift_prob_map
-from roborts_slam_tpu.utils.evaluation import ate_rmse, match_by_time
+from roborts_slam.engine import SlamEngine
+from roborts_slam.io.scenes import SCENES, load_scene_map
+from roborts_slam.io.simulate import simulate_log
+from roborts_slam.models.grid_map import ProbMap, ProbMapSpec, shift_prob_map
+from roborts_slam.utils.evaluation import ate_rmse, match_by_time
 from tests.test_e2e_small import _small_config
 
 
@@ -67,9 +67,9 @@ def test_recenter_rebuilds_from_history():
     """Recentered match maps are rebuilt from stored scans: areas the robot
     left long ago carry real content when a window covers them again (the
     round-1 shift left newly exposed cells at the default until re-scanned)."""
-    from roborts_slam_tpu.io.pgm import GroundTruthMap
-    from roborts_slam_tpu.io.simulate import raycast
-    from roborts_slam_tpu.models.scan import LaserModel
+    from roborts_slam.io.pgm import GroundTruthMap
+    from roborts_slam.io.simulate import raycast
+    from roborts_slam.models.scan import LaserModel
 
     # corridor 30 m x 4 m with pillars every 2 m (x-texture for matching)
     res = 0.05

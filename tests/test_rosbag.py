@@ -1,12 +1,13 @@
 """rosbag v2.0 reader: round-trip against a synthesized bag."""
 
 import bz2
+import dataclasses
 import struct
 
 import numpy as np
 import pytest
 
-from roborts_slam_tpu.io.rosbag import bag_to_scan_log, read_bag_messages
+from roborts_slam.io.rosbag import bag_to_scan_log, read_bag_messages
 
 
 def _header(fields: dict) -> bytes:
@@ -87,7 +88,7 @@ def _write_bag(path, chunked: bool, compression: str = "none"):
             if compression == "bz2":
                 payload = bz2.compress(body)
             elif compression == "lz4":
-                from roborts_slam_tpu.io.lz4 import compress_frame
+                from roborts_slam.io.lz4 import compress_frame
 
                 payload = compress_frame(body)
             else:
@@ -261,7 +262,7 @@ def test_record_style_bag_layout(tmp_path):
 def test_lz4_codec_vectors():
     """The pure-python LZ4 codec: known-answer block vectors (match copies,
     overlapping RLE copies, literal runs >= 15) and frame round-trips."""
-    from roborts_slam_tpu.io.lz4 import (
+    from roborts_slam.io.lz4 import (
         compress_frame, decompress_block, decompress_frame,
     )
 
@@ -285,18 +286,18 @@ def test_lz4_codec_vectors():
 
 @pytest.mark.e2e
 def test_bag_end_to_end_slam(tmp_path):
-    """The real-sensor loop, closed (VERDICT r3 missing #3): simulate the
+    """The real-sensor loop, closed: simulate the
     icra scene, WRITE it as a rosbag 2.0 file with the package's own writer
     (io.rosbag.write_bag — LaserScan + Odometry in bz2 chunks, the same
     container subset the reader parses), read it back with bag_to_scan_log,
     run the engine on it, and require the trajectory quality to match the
     direct (npz-path) replay of the same simulation — no fixture shortcuts
     anywhere (ref: launch/roborts_slam_realworld_hokuyo_bag.launch)."""
-    from roborts_slam_tpu.engine import SlamEngine
-    from roborts_slam_tpu.io.rosbag import write_bag
-    from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-    from roborts_slam_tpu.io.simulate import simulate_log
-    from roborts_slam_tpu.utils.evaluation import ate_rmse, match_by_time
+    from roborts_slam.engine import SlamEngine
+    from roborts_slam.io.rosbag import write_bag
+    from roborts_slam.io.scenes import SCENES, load_scene_map
+    from roborts_slam.io.simulate import simulate_log
+    from roborts_slam.utils.evaluation import ate_rmse, match_by_time
     from tests.test_e2e_small import _small_config
 
     sc = SCENES["icra"]
@@ -305,7 +306,7 @@ def test_bag_end_to_end_slam(tmp_path):
     path = str(tmp_path / "icra_sim.bag")
     write_bag(path, log, compression="bz2", chunk_msgs=64)
 
-    from roborts_slam_tpu.io.rosbag import bag_to_scan_log
+    from roborts_slam.io.rosbag import bag_to_scan_log
 
     blog = bag_to_scan_log(
         path, range_threshold_scale=log.laser.range_threshold_scale)
@@ -322,6 +323,11 @@ def test_bag_end_to_end_slam(tmp_path):
 
     cfg = _small_config()
     n = min(len(log), 160)
+    # a LaserScan carries its angles as float32, so both paths replay the
+    # beams the bag carries. With the simulator's float64 angles the points
+    # differ by ~5e-7 m, and whether that moves a later pose by more than
+    # 1e-3 m depends on where a score tie or a cell edge happens to fall.
+    log = dataclasses.replace(log, laser=blog.laser)
 
     def run(replay_log):
         eng = SlamEngine(cfg, replay_log.laser, synchronous_backend=True)

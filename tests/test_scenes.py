@@ -7,11 +7,11 @@ paths the icra test doesn't.)"""
 import numpy as np
 import pytest
 
-from roborts_slam_tpu.config import SlamConfig
-from roborts_slam_tpu.engine import SlamEngine
-from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-from roborts_slam_tpu.io.simulate import path_to_trajectory, simulate_log
-from roborts_slam_tpu.utils.evaluation import ate_rmse, match_by_time
+from roborts_slam.config import SlamConfig
+from roborts_slam.engine import SlamEngine
+from roborts_slam.io.scenes import SCENES, load_scene_map
+from roborts_slam.io.simulate import path_to_trajectory, simulate_log
+from roborts_slam.utils.evaluation import ate_rmse, match_by_time
 from tests.test_e2e_small import _small_config
 
 
@@ -21,6 +21,30 @@ def test_scene_maps_load():
         assert gt.occupancy.any(), name
         assert gt.free.sum() > gt.occupancy.sum(), name
         assert abs(gt.resolution - 0.05) < 1e-9
+
+
+# (width, height) in pixels of the reference's maps (BASELINE.md)
+REFERENCE_SIZES = {"willow": (1165, 945), "icra": (162, 102),
+                   "rm": (336, 574)}
+
+
+@pytest.mark.parametrize("name", sorted(REFERENCE_SIZES))
+def test_scene_generator_is_seeded_and_sized(name):
+    """Same seed, same map; another seed, another map; always the
+    reference map's size, with a plannable loop through free space."""
+    from roborts_slam.io.scenes import generate_scene_map
+    from roborts_slam.io.simulate import auto_loop_waypoints
+
+    sc = SCENES[name]
+    a, b = generate_scene_map(sc), generate_scene_map(sc)
+    assert (a.width, a.height) == REFERENCE_SIZES[name]
+    np.testing.assert_array_equal(a.occupancy, b.occupancy)
+    np.testing.assert_array_equal(a.free, b.free)
+    assert not (a.occupancy & a.free).any()
+    other = generate_scene_map(sc, seed=sc.seed + 1)
+    assert (other.occupancy != a.occupancy).any()
+    wps = auto_loop_waypoints(a, n=sc.n_waypoints, clearance_m=sc.clearance_m)
+    assert wps.shape == (sc.n_waypoints, 2)
 
 
 def test_rm_short_run():

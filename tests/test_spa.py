@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from roborts_slam_tpu.backend.spa import (
+from roborts_slam.backend.spa import (
     PoseGraphData, edge_residuals, graph_cost, solve_pose_graph,
     solve_pose_graph_dense,
 )
-from roborts_slam_tpu.utils.geometry import normalize_angle, pose_relative
+from roborts_slam.utils.geometry import normalize_angle, pose_relative
 
 
 def _make_loop_graph(n=40, noise=0.05, seed=0, pad_n=64, pad_e=128):

@@ -1,4 +1,4 @@
-"""Generate golden-trajectory regression fixtures (VERDICT r1 item 5).
+"""Generate golden-trajectory regression fixtures.
 
 Writes tests/data/golden_<scene>.npz: a small fixed scan-log slice plus
 the engine's expected output trajectory on the CPU backend with the
@@ -25,12 +25,6 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                           + " --xla_force_host_platform_device_count=8").strip()
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 SEED = 5
 # willow: fewer scans (1081-beam steps are ~10x the icra cost on CPU) and
 # a 0.02 m fine map so the fixture replays in test-suite time
@@ -43,11 +37,11 @@ SCENES_GOLD = {
 
 
 def build_engine(laser, scene: str = "icra"):
-    from roborts_slam_tpu.config import load_config
-    from roborts_slam_tpu.engine import SlamEngine
+    from roborts_slam.config import SIMULATION_REFERENCE_PROFILE, load_config
+    from roborts_slam.engine import SlamEngine
 
     g = SCENES_GOLD[scene]
-    cfg = load_config("/root/reference/config/simulatin_param.yaml")
+    cfg = load_config(SIMULATION_REFERENCE_PROFILE)
     if g["overrides"]:
         cfg = cfg.replace(**g["overrides"])
     return SlamEngine(cfg, laser, world_size=g["world_size"],
@@ -55,8 +49,8 @@ def build_engine(laser, scene: str = "icra"):
 
 
 def make(scene: str):
-    from roborts_slam_tpu.io.scenes import SCENES, load_scene_map
-    from roborts_slam_tpu.io.simulate import simulate_log
+    from roborts_slam.io.scenes import SCENES, load_scene_map
+    from roborts_slam.io.simulate import simulate_log
 
     out = os.path.join(REPO, "tests", "data", f"golden_{scene}.npz")
     sc = SCENES[scene]
@@ -91,6 +85,10 @@ def make(scene: str):
 
 
 def main():
+    # goldens are recorded on the CPU backend
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
     scenes = sys.argv[1:] or list(SCENES_GOLD)
     for scene in scenes:
         make(scene)
